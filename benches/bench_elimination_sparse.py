@@ -12,10 +12,11 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from harness import emit, profiled, run_timed
+from harness import emit, profiled, run_timed, start
 
 
 def main():
+    start()
     m = int(sys.argv[1]) if len(sys.argv) > 1 else 4096
     n = int(sys.argv[2]) if len(sys.argv) > 2 else m
     alg = sys.argv[3] if len(sys.argv) > 3 else "heuristic"
@@ -24,13 +25,13 @@ def main():
 
     import jax
     import jax.numpy as jnp
-    from m4ri_tpu.core.bitmatrix import BitMatrix, mask_padding, width_for
-    from m4ri_tpu.models.echelon import echelonize
+    from m4ri_jax.core.bitmatrix import BitMatrix, mask_padding, width_for
+    from m4ri_jax.models.echelon import echelonize
 
     # Bernoulli(density) bits, built packed on device
     key = jax.random.PRNGKey(7)
     bits = (jax.random.uniform(key, (m, n)) < density).astype(jnp.uint8)
-    from m4ri_tpu.ops.mul import pack_bits
+    from m4ri_jax.ops.mul import pack_bits
     a = mask_padding(BitMatrix(pack_bits(bits)[:, : width_for(n)], n))
 
     def once():

@@ -10,16 +10,17 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from harness import emit, profiled, run_timed
+from harness import emit, profiled, run_timed, start
 
 
 def main():
+    start()
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 4096
 
     import jax
     import jax.numpy as jnp
-    from m4ri_tpu.core.bitmatrix import BitMatrix, identity, width_for
-    from m4ri_tpu.models.echelon import invert
+    from m4ri_jax.core.bitmatrix import BitMatrix, identity, width_for
+    from m4ri_jax.models.echelon import invert
 
     data = jax.random.bits(jax.random.PRNGKey(0), (n, width_for(n)),
                            dtype=jnp.uint32)

@@ -10,10 +10,11 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from harness import emit, profiled, run_timed
+from harness import emit, profiled, run_timed, start
 
 
 def main():
+    start()
     args = [int(a) for a in sys.argv[1:]]
     if len(args) <= 2:
         m = n = l = (args[0] if args else 4096)
@@ -24,8 +25,8 @@ def main():
 
     import jax
     import jax.numpy as jnp
-    from m4ri_tpu.core.bitmatrix import BitMatrix, width_for
-    from m4ri_tpu.ops.m4rm import mul_m4rm
+    from m4ri_jax.core.bitmatrix import BitMatrix, width_for
+    from m4ri_jax.ops.m4rm import mul_m4rm
 
     a = BitMatrix(jax.random.bits(jax.random.PRNGKey(0), (m, width_for(l)),
                                   dtype=jnp.uint32), l)

@@ -9,17 +9,18 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from harness import emit, profiled, run_timed
+from harness import emit, profiled, run_timed, start
 
 
 def main():
+    start()
     m = int(sys.argv[1]) if len(sys.argv) > 1 else 4096
     n = int(sys.argv[2]) if len(sys.argv) > 2 else m
 
     import jax
     import jax.numpy as jnp
-    from m4ri_tpu.core.bitmatrix import BitMatrix, width_for
-    from m4ri_tpu.models.echelon import rank
+    from m4ri_jax.core.bitmatrix import BitMatrix, width_for
+    from m4ri_jax.models.echelon import rank
 
     a = BitMatrix(jax.random.bits(jax.random.PRNGKey(0), (m, width_for(n)),
                                   dtype=jnp.uint32), n)

@@ -10,17 +10,18 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from harness import emit, profiled, run_timed
+from harness import emit, profiled, run_timed, start
 
 
 def main():
+    start()
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 4096
     nb_cols = int(sys.argv[2]) if len(sys.argv) > 2 else 256
 
     import jax
     import jax.numpy as jnp
-    from m4ri_tpu.core.bitmatrix import BitMatrix, width_for
-    from m4ri_tpu.models.solve import solve_left
+    from m4ri_jax.core.bitmatrix import BitMatrix, width_for
+    from m4ri_jax.models.solve import solve_left
 
     a = BitMatrix(jax.random.bits(jax.random.PRNGKey(0), (n, width_for(n)),
                                   dtype=jnp.uint32), n)

@@ -10,13 +10,14 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from harness import emit, profiled, run_timed
+from harness import emit, profiled, run_timed, start
 
 REF = {(32768, 0, 0): 24.199, (32768, 0, 1): 9.156,
        (32768, 1, 0): 9.786, (32768, 1, 1): 11.002}
 
 
 def main():
+    start()
     m = int(sys.argv[1]) if len(sys.argv) > 1 else 4096
     n = int(sys.argv[2]) if len(sys.argv) > 2 else m
     upper = int(sys.argv[3]) if len(sys.argv) > 3 else 1
@@ -25,15 +26,15 @@ def main():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from m4ri_tpu.core.bitmatrix import BitMatrix, width_for, mask_padding
-    from m4ri_tpu.core.bitops import _triangle_mask
-    from m4ri_tpu.models import triangular as tri
+    from m4ri_jax.core.bitmatrix import BitMatrix, width_for, mask_padding
+    from m4ri_jax.core.bitops import _triangle_mask
+    from m4ri_jax.models import triangular as tri
 
     tdim = n if left else n  # the triangular operand is n x n
     tdata = jax.random.bits(jax.random.PRNGKey(0), (n, width_for(n)),
                             dtype=jnp.uint32)
     keep = _triangle_mask(n, upper=bool(upper))
-    from m4ri_tpu.core.bitmatrix import identity
+    from m4ri_jax.core.bitmatrix import identity
     t = mask_padding(BitMatrix((tdata & keep) | identity(n).data, n))
     bshape = (n, m) if left else (m, n)
     b = BitMatrix(jax.random.bits(jax.random.PRNGKey(1),

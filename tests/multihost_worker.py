@@ -28,11 +28,11 @@ import numpy as np  # noqa: E402
 from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 from jax.experimental import multihost_utils  # noqa: E402
 
-import m4ri_tpu as m4  # noqa: E402
-from m4ri_tpu.parallel.mesh import make_multihost_mesh  # noqa: E402
-from m4ri_tpu.parallel.dist_mul import mul_dist, mul_dist_ksplit  # noqa: E402
-from m4ri_tpu.parallel.dist_ple import dist_ple  # noqa: E402
-from m4ri_tpu.models.ple import ple  # noqa: E402
+import m4ri_jax as m4  # noqa: E402
+from m4ri_jax.parallel.mesh import make_multihost_mesh  # noqa: E402
+from m4ri_jax.parallel.dist_mul import mul_dist, mul_dist_ksplit  # noqa: E402
+from m4ri_jax.parallel.dist_ple import dist_ple  # noqa: E402
+from m4ri_jax.models.ple import ple  # noqa: E402
 
 
 def log(msg):
@@ -43,7 +43,7 @@ mesh = make_multihost_mesh(coordinator=coord, num_processes=nproc,
                            process_id=pid)
 assert jax.process_count() == nproc, jax.process_count()
 assert len(jax.devices()) == 4 * nproc
-# host-major layout: outer "x" rows = hosts (DCN), inner "y" = local chips
+# host-major layout: outer "x" rows = hosts, inner "y" = local devices
 assert dict(mesh.shape) == {"x": nproc, "y": 4}, dict(mesh.shape)
 for h in range(nproc):
     assert all(d.process_index == h for d in mesh.devices[h]), \

@@ -6,7 +6,7 @@ the one-column skip when a round comes up short (r += kbar; c += kbar;
 if kk != kbar: c += 1).
 
 Used by tests/test_elimination.py to pin the search-window semantics of
-m4ri_tpu.top_echelonize on structured inputs.  NOTE the reference's
+m4ri_jax.top_echelonize on structured inputs.  NOTE the reference's
 documented contract (brilliantrussian.h:218-227) is inputs already in
 upper-triangular (echelon) form — for those the restricted search always
 finds its pivot at row r and the result is the unique RREF."""

@@ -3,8 +3,8 @@ names must run unchanged (modulo functional return values)."""
 
 import numpy as np
 
-import m4ri_tpu.compat as m4ri
-import m4ri_tpu as m4
+import m4ri_jax.compat as m4ri
+import m4ri_jax as m4
 
 import oracle
 from conftest import random_dense
@@ -74,7 +74,7 @@ def test_compat_trsm(rng):
 def test_randomize_advances_stream():
     """Successive un-seeded mzd_randomize calls must differ (the reference
     advances its RNG stream on every call)."""
-    from m4ri_tpu import compat
+    from m4ri_jax import compat
     a = compat.mzd_init(32, 32)
     m1 = compat.mzd_randomize(a)
     m2 = compat.mzd_randomize(a)
@@ -84,7 +84,7 @@ def test_randomize_advances_stream():
 def test_inv_m4ri_raises_on_singular(rng):
     """The reference m4ri_die()s on non-invertible input; we raise."""
     import pytest as _pytest
-    from m4ri_tpu import compat
+    from m4ri_jax import compat
     a = np.zeros((16, 16), np.uint8)
     a[0, 0] = 1  # rank 1
     with _pytest.raises(ValueError, match="not invertible"):
@@ -166,7 +166,7 @@ def test_compat_capped_right_perm(rng):
 def test_compat_djb_builder(rng):
     """A hand-built DJB program via djb_init/push_back applies like the
     compiled one."""
-    from m4ri_tpu.models.djb import djb_apply
+    from m4ri_jax.models.djb import djb_apply
     # replay is in reverse (djb.c:142-153), so later list entries run
     # first: y0 = x1; y1 = x0 ^ y0  (i.e. y1 = x0 ^ x1)
     z = m4ri.djb_init(2, 2)

@@ -5,9 +5,9 @@ test_multiplication.c; here the OpenMP 2x2 split became a 2-D SPMD mesh."""
 import numpy as np
 import pytest
 
-import m4ri_tpu as m4
-from m4ri_tpu.parallel.dist_mul import mul_dist, mul_dist_ksplit
-from m4ri_tpu.parallel.mesh import make_mesh
+import m4ri_jax as m4
+from m4ri_jax.parallel.dist_mul import mul_dist, mul_dist_ksplit
+from m4ri_jax.parallel.mesh import make_mesh
 
 import oracle
 from conftest import random_dense
@@ -52,13 +52,13 @@ def test_dryrun_entry():
 
 
 def test_multihost_mesh_layout(rng, monkeypatch):
-    """Simulated 2-host topology over the 8 virtual devices: the DCN
-    (host) axis must be the outer mesh rows — host-major layout — and the
+    """Simulated 2-host topology over the 8 virtual devices: the host
+    axis must be the outer mesh rows — host-major layout — and the
     distributed engines must run unchanged over that mesh (their panel
-    all-gathers then ride the inner/ICI axis, SURVEY §5 'distributed
+    all-gathers then ride the inner, intra-host axis, SURVEY §5 'distributed
     backend')."""
     import jax
-    from m4ri_tpu.parallel.mesh import make_multihost_mesh
+    from m4ri_jax.parallel.mesh import make_multihost_mesh
     monkeypatch.setattr(jax, "process_count", lambda: 2, raising=False)
     mesh = make_multihost_mesh()
     assert dict(mesh.shape) == {"x": 2, "y": 4}
@@ -72,8 +72,8 @@ def test_multihost_mesh_layout(rng, monkeypatch):
     # factorization family over the host-major mesh (1-D row sharding
     # spanning both hosts)
     from jax.sharding import Mesh
-    from m4ri_tpu.parallel.dist_ple import dist_ple
-    from m4ri_tpu.models.ple import ple
+    from m4ri_jax.parallel.dist_ple import dist_ple
+    from m4ri_jax.models.ple import ple
     mesh1d = Mesh(mesh.devices.reshape(8, 1), ("x", "y"))
     sq = random_dense(rng, 96, 64)
     SQ = m4.from_numpy(sq)
@@ -88,11 +88,11 @@ def test_stretch_mul_262144_lowers(mesh):
     """The multi-host stretch config (BASELINE.json: mul n=262144) lowers
     end-to-end over the mesh: abstract AOT trace, no buffers allocated.
     Validates that the SUMMA sharding rules and all-gather collectives
-    compose at a size no single chip can hold (3 operands = 25.8 GB packed
-    vs 16 GB HBM), i.e. the design scales by adding devices, not memory."""
+    compose at the stretch size (3 operands = 25.8 GB packed), where each
+    device holds only its blocks."""
     import jax
     import jax.numpy as jnp
-    from m4ri_tpu.core.bitmatrix import BitMatrix, width_for
+    from m4ri_jax.core.bitmatrix import BitMatrix, width_for
     n = 262144
     w = width_for(n)
 

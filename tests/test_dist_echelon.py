@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-import m4ri_tpu as m4
-from m4ri_tpu.parallel.dist_echelon import dist_echelonize, dist_rank
-from m4ri_tpu.parallel.mesh import make_mesh
+import m4ri_jax as m4
+from m4ri_jax.parallel.dist_echelon import dist_echelonize, dist_rank
+from m4ri_jax.parallel.mesh import make_mesh
 
 import oracle
 from conftest import random_dense

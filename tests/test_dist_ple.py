@@ -11,13 +11,13 @@ import pytest
 import jax
 from jax.sharding import Mesh
 
-import m4ri_tpu as m4
-from m4ri_tpu.models.ple import block_factor, ple
-from m4ri_tpu.models.solve import solve_left
-from m4ri_tpu.models.triangular import (trsm_lower_left, trsm_lower_right,
+import m4ri_jax as m4
+from m4ri_jax.models.ple import block_factor, ple
+from m4ri_jax.models.solve import solve_left
+from m4ri_jax.models.triangular import (trsm_lower_left, trsm_lower_right,
                                         trsm_upper_left, trsm_upper_right)
-from m4ri_tpu.parallel.dist_ple import dist_block_factor, dist_ple
-from m4ri_tpu.parallel.dist_solve import (dist_solve_left,
+from m4ri_jax.parallel.dist_ple import dist_block_factor, dist_ple
+from m4ri_jax.parallel.dist_solve import (dist_solve_left,
                                           dist_trsm_lower_left,
                                           dist_trsm_lower_right,
                                           dist_trsm_upper_left,
@@ -66,6 +66,38 @@ def test_dist_block_factor_bit_identical(rng, preserve_l):
         for g, w, what in zip(got, want, ["data", "P", "Q", "rank"]):
             np.testing.assert_array_equal(
                 np.asarray(g), np.asarray(w), err_msg=f"{name}: {what}")
+
+
+@pytest.mark.parametrize("preserve_l", [False, True])
+def test_dist_block_factor_gpu_kernels_interpret(rng, monkeypatch,
+                                                 preserve_l):
+    """The GPU path inside shard_map: the pivot-loop kernel replicated on
+    every device and the product kernel for each shard's Schur update
+    (both interpreted here) stay bit-identical to the local XLA engine."""
+    from m4ri_jax.ops import gpu_mul
+    from m4ri_jax.ops import mul as mulmod
+    real = gpu_mul.gf2_mul_triton
+    calls = []
+
+    def interp(a, b, *args, **kw):
+        calls.append(a.shape)
+        return real(a, b, *args, **dict(kw, interpret=True))
+
+    monkeypatch.setattr(gpu_mul, "gf2_mul_triton", interp)
+    # the shard update takes mul_packed_data's shape gate: open it
+    monkeypatch.setattr(mulmod, "use_product_kernel", lambda *_: True)
+    mesh = mesh1d()
+    a_np = random_dense(rng, 150, 96)
+    a_np[10:60] = 0
+    A = m4.from_numpy(a_np)
+    want = block_factor(A, preserve_l=preserve_l, nb=32, window=64,
+                        engine="xla")
+    got = dist_block_factor(A, mesh, preserve_l=preserve_l, nb=32,
+                            window=64, engine="triton_interpret")
+    for g, w, what in zip(got, want, ["data", "P", "Q", "rank"]):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w),
+                                      err_msg=what)
+    assert calls, "the shard Schur update did not reach the kernel"
 
 
 def test_dist_ple_matches_local(rng):
@@ -132,8 +164,8 @@ def test_dist_solve_inconsistent(rng):
 
 
 def test_dist_invert(rng):
-    from m4ri_tpu.parallel.dist_solve import dist_invert
-    from m4ri_tpu.models.echelon import invert
+    from m4ri_jax.parallel.dist_solve import dist_invert
+    from m4ri_jax.models.echelon import invert
     mesh = mesh2d()
     # invertible: unit-lower times unit-upper
     n = 96
@@ -155,8 +187,8 @@ def test_dist_invert(rng):
 
 
 def test_dist_kernel_left(rng):
-    from m4ri_tpu.parallel.dist_solve import dist_kernel_left
-    from m4ri_tpu.models.solve import kernel_left
+    from m4ri_jax.parallel.dist_solve import dist_kernel_left
+    from m4ri_jax.models.solve import kernel_left
     mesh = mesh1d()
     a_np = oracle.mul(random_dense(rng, 120, 40),
                       random_dense(rng, 40, 150)).astype(np.uint8)

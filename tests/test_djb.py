@@ -4,8 +4,8 @@ to V must equal the M4RM product A*V)."""
 import numpy as np
 import pytest
 
-import m4ri_tpu as m4
-from m4ri_tpu.models.djb import djb_apply, djb_compile
+import m4ri_jax as m4
+from m4ri_jax.models.djb import djb_apply, djb_compile
 
 import oracle
 from conftest import random_dense

@@ -1,12 +1,12 @@
 """Echelonization tests (reference: tests/test_elimination.c — several
 independent elimination paths must agree; RREF is unique over GF(2), so the
-TPU engine must match the numpy Gauss oracle bit-for-bit)."""
+device engine must match the numpy Gauss oracle bit-for-bit)."""
 
 import numpy as np
 import pytest
 
-import m4ri_tpu as m4
-from m4ri_tpu.models.echelon import echelonize, rank, top_echelonize
+import m4ri_jax as m4
+from m4ri_jax.models.echelon import echelonize, rank, top_echelonize
 
 import oracle
 from conftest import random_dense
@@ -55,7 +55,7 @@ def test_ref_non_reduced(rng, m, n):
 def test_elimination_paths_agree(rng, m, n):
     """Independent engines must produce identical results (reference:
     test_elimination.c elim_test_equality compares 7 paths)."""
-    from m4ri_tpu.models.echelon import echelonize_pluq, top_echelonize
+    from m4ri_jax.models.echelon import echelonize_pluq, top_echelonize
     a = random_dense(rng, m, n)
     A = m4.from_numpy(a)
     expect = oracle.rref(a)

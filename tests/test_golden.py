@@ -1,117 +1,37 @@
-"""Golden-vector regression vs the reference binary (VERDICT r4 #5).
+"""Golden-vector regression vs the reference binary.
 
-``tests/data/golden_reference.jsonl`` was captured by compiling the
-reference M4RI library (gcc -O3 -march=native) and running
-``tests/data/golden_capture.c``: for seeded inputs (srandom(17),
-mzd_randomize draw order documented per case) it records the full P/Q
-swap arrays of ``mzd_ple`` / ``mzd_pluq`` (tests/test_ple.c:6-43 pins the
-same reconstruction contract), the RREF hash of ``mzd_echelonize``, and
-``mzd_mul`` product hashes (tests/test_random.c:33-62 fixes the RNG
-stream).  These tests rebuild the identical inputs via the bit-exact
-glibc stream mirror (utils/rng.py) and fail if the rank, the pivot
-order (swap arrays), or any output bit ever diverges from the reference
-binary — closing the "silent pivot-order divergence" gap.
-
-Hash: FNV-1a 64 over the dense bits row-major, one byte 0/1 per bit
-(layout independent; identical code in golden_capture.c).
+The cases and their runner live in tests/golden_cases.py (shared with
+chip_smoke.py, which runs the same cases on the GPU).  Each test fails if
+the rank, the pivot order (swap arrays), or any output bit ever diverges
+from the reference binary — closing the "silent pivot-order divergence"
+gap.
 """
 
-import json
-import pathlib
-
-import numpy as np
 import pytest
 
-import m4ri_tpu as m4
-from m4ri_tpu.core.bitmatrix import from_numpy, to_numpy
-from m4ri_tpu.models.echelon import echelonize
-from m4ri_tpu.models.ple import ple, pluq
-from m4ri_tpu.ops.mul import mul
-from m4ri_tpu.utils.rng import GlibcRandom, reference_random_data
+from golden_cases import case_id, check_case, load_cases
 
-DATA = pathlib.Path(__file__).parent / "data" / "golden_reference.jsonl"
-
-_FNV_OFF = np.uint64(0xCBF29CE484222325)
-_FNV_PRIME = np.uint64(0x100000001B3)
+_PLE = load_cases("ple")
+_PLUQ = load_cases("pluq")
+_RREF = load_cases("rref")
+_MUL = load_cases("mul")
 
 
-def fnv1a_bits(dense: np.ndarray) -> str:
-    """FNV-1a 64 over row-major bits, matching golden_capture.c."""
-    h = _FNV_OFF
-    with np.errstate(over="ignore"):
-        for b in dense.reshape(-1).astype(np.uint64):
-            h = (h ^ b) * _FNV_PRIME
-    return f"{int(h):016x}"
-
-
-def _load(op):
-    recs = [json.loads(l) for l in DATA.read_text().splitlines()]
-    return [r for r in recs if r["op"] == op]
-
-
-def _build_input(rec):
-    """Rebuild the case input with the reference's exact draw order."""
-    if rec["k"]:
-        rng = GlibcRandom(17)
-        b = reference_random_data(rec["m"], rec["k"], rng=rng)
-        c = reference_random_data(rec["k"], rec["n"], rng=rng)
-        B = m4.BitMatrix(np.asarray(b), rec["k"])
-        C = m4.BitMatrix(np.asarray(c), rec["n"])
-        return mul(B, C)
-    data = reference_random_data(rec["m"], rec["n"], seed=17)
-    return m4.BitMatrix(np.asarray(data), rec["n"])
-
-
-def _ids(recs):
-    return [f"{r['kind']}-{r['m']}x{r['n']}" for r in recs]
-
-
-_PLE = _load("ple")
-_PLUQ = _load("pluq")
-_RREF = _load("rref")
-_MUL = _load("mul")
-
-
-@pytest.mark.parametrize("rec", _PLE, ids=_ids(_PLE))
+@pytest.mark.parametrize("rec", _PLE, ids=[case_id(r) for r in _PLE])
 def test_golden_ple(rec):
-    A = _build_input(rec)
-    assert fnv1a_bits(to_numpy(A)) == rec["in_hash"], "RNG stream diverged"
-    M, P, Q, r = ple(A)
-    assert int(r) == rec["rank"]
-    np.testing.assert_array_equal(np.asarray(P), rec["P"],
-                                  err_msg="P swap array (pivot rows)")
-    np.testing.assert_array_equal(np.asarray(Q), rec["Q"],
-                                  err_msg="Q swap array (pivot columns)")
-    assert fnv1a_bits(to_numpy(M)) == rec["out_hash"], "L|E in-place body"
+    check_case(rec)
 
 
-@pytest.mark.parametrize("rec", _PLUQ, ids=_ids(_PLUQ))
+@pytest.mark.parametrize("rec", _PLUQ, ids=[case_id(r) for r in _PLUQ])
 def test_golden_pluq(rec):
-    A = _build_input(rec)
-    M, P, Q, r = pluq(A)
-    assert int(r) == rec["rank"]
-    np.testing.assert_array_equal(np.asarray(P), rec["P"])
-    np.testing.assert_array_equal(np.asarray(Q), rec["Q"])
-    assert fnv1a_bits(to_numpy(M)) == rec["out_hash"], "L\\U in-place body"
+    check_case(rec)
 
 
-@pytest.mark.parametrize("rec", _RREF, ids=_ids(_RREF))
+@pytest.mark.parametrize("rec", _RREF, ids=[case_id(r) for r in _RREF])
 def test_golden_rref(rec):
-    A = _build_input(rec)
-    E, r = echelonize(A, full=True)
-    assert int(r) == rec["rank"]
-    assert fnv1a_bits(to_numpy(E)) == rec["out_hash"]
+    check_case(rec)
 
 
-@pytest.mark.parametrize(
-    "rec", _MUL, ids=[f"{r['m']}x{r['k']}x{r['n']}" for r in _MUL])
+@pytest.mark.parametrize("rec", _MUL, ids=[case_id(r) for r in _MUL])
 def test_golden_mul(rec):
-    rng = GlibcRandom(17)
-    a = reference_random_data(rec["m"], rec["k"], rng=rng)
-    b = reference_random_data(rec["k"], rec["n"], rng=rng)
-    A = m4.BitMatrix(np.asarray(a), rec["k"])
-    B = m4.BitMatrix(np.asarray(b), rec["n"])
-    assert fnv1a_bits(to_numpy(A)) == rec["a_hash"]
-    assert fnv1a_bits(to_numpy(B)) == rec["b_hash"]
-    C = mul(A, B)
-    assert fnv1a_bits(to_numpy(C)) == rec["out_hash"]
+    check_case(rec)

@@ -3,8 +3,8 @@ usage throughout test_ple.c/test_pluq.c)."""
 
 import numpy as np
 
-import m4ri_tpu as m4
-from m4ri_tpu.utils import io
+import m4ri_jax as m4
+from m4ri_jax.utils import io
 
 from conftest import random_dense
 
@@ -46,7 +46,7 @@ def test_to_text():
 
 
 def test_hash_changes(rng):
-    from m4ri_tpu.utils.hashing import matrix_hash
+    from m4ri_jax.utils.hashing import matrix_hash
     a = random_dense(rng, 8, 8)
     h1 = int(matrix_hash(m4.from_numpy(a)))
     b = a.copy()
@@ -68,8 +68,8 @@ def test_npz_roundtrip(rng, tmp_path):
 
 
 def test_randomize_custom():
-    from m4ri_tpu.core.bitmatrix import randomize_custom
-    from m4ri_tpu.utils.rng import GlibcRandom
+    from m4ri_jax.core.bitmatrix import randomize_custom
+    from m4ri_jax.utils.rng import GlibcRandom
     g = GlibcRandom(17)
     A = randomize_custom(5, 100, g.random_word)
     B = m4.randomize_reference(5, 100, seed=17)
@@ -130,7 +130,7 @@ def test_png_all_filters(tmp_path):
            + chunk(b"IEND", b""))
     path = tmp_path / "filters.png"
     path.write_bytes(png)
-    from m4ri_tpu.utils.io import read_png
+    from m4ri_jax.utils.io import read_png
     got = m4.to_numpy(read_png(str(path)))
     np.testing.assert_array_equal(got, bits)
 

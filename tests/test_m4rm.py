@@ -4,9 +4,9 @@ M4RM against naive and Strassen) and Gray-code table tests."""
 import numpy as np
 import pytest
 
-import m4ri_tpu as m4
-from m4ri_tpu.ops.m4rm import addmul_m4rm, mul_m4rm
-from m4ri_tpu.utils.graycode import codebook, gray_code, opt_k
+import m4ri_jax as m4
+from m4ri_jax.ops.m4rm import addmul_m4rm, mul_m4rm
+from m4ri_jax.utils.graycode import codebook, gray_code, opt_k
 
 import oracle
 from conftest import random_dense

@@ -2,7 +2,7 @@
 
 The virtual 8-device mesh used everywhere else lives in ONE process; this
 test runs the actual process-boundary code path — jax.distributed.initialize,
-make_multihost_mesh's host-major DCN layout, and cross-process collectives —
+make_multihost_mesh's host-major layout, and cross-process collectives —
 as a real 2-process CPU cluster on localhost (4 virtual devices per
 process), asserting mul_dist / mul_dist_ksplit / dist_ple bit-identical to
 the single-process engines.  Reference analogue: none (the reference's

@@ -1,15 +1,15 @@
 """Multiplication tests (reference: tests/test_multiplication.c — equality of
 independent algorithms over many sizes incl. non-square/odd).  Here the
 independent algorithms are: numpy integer matmul mod 2 (oracle.py), the
-popcount-parity naive engine, the MXU unpack/int8 engine, and the
+popcount-parity naive engine, the matrix-unit unpack/int8 engine, and the
 Strassen-Winograd recursion forced on top."""
 
 import numpy as np
 import pytest
 
-import m4ri_tpu as m4
-from m4ri_tpu.ops.strassen import strassen_mul_data
-from m4ri_tpu.core.bitmatrix import BitMatrix, width_for
+import m4ri_jax as m4
+from m4ri_jax.ops.strassen import strassen_mul_data
+from m4ri_jax.core.bitmatrix import BitMatrix, width_for
 
 import oracle
 from conftest import random_dense
@@ -27,9 +27,9 @@ def test_mul_cross_validation(rng, m, k, n):
     b = random_dense(rng, k, n)
     expect = oracle.mul(a, b)
     A, B = m4.from_numpy(a), m4.from_numpy(b)
-    C_mxu = m4.mul(A, B)
+    C_dev = m4.mul(A, B)
     C_naive = m4.mul_naive(A, B)
-    np.testing.assert_array_equal(m4.to_numpy(C_mxu), expect)
+    np.testing.assert_array_equal(m4.to_numpy(C_dev), expect)
     np.testing.assert_array_equal(m4.to_numpy(C_naive), expect)
 
 
@@ -63,8 +63,8 @@ def test_sqr(rng):
 
 def test_mul_blocked_path(rng):
     """Exercise the depth/row-blocked big-operand path with tiny blocks."""
-    from m4ri_tpu.utils.config import Config
-    from m4ri_tpu.ops.mul import mul_packed_data
+    from m4ri_jax.utils.config import Config
+    from m4ri_jax.ops.mul import mul_packed_data
     a = random_dense(rng, 100, 200)
     b = random_dense(rng, 200, 90)
     cfg = Config(mul_block_threshold=64, mul_block_m=64, mul_block_k=64)
@@ -80,7 +80,7 @@ def test_mul_blocked_path(rng):
 def test_strassen_addmul_schedule(rng, m, k, n, levels):
     """The fused-accumulate Winograd schedule (strassen.c:443-491) must
     equal C + A*B for ragged shapes across recursion depths."""
-    from m4ri_tpu.ops.strassen import strassen_addmul_data
+    from m4ri_jax.ops.strassen import strassen_addmul_data
     a = random_dense(rng, m, k)
     b = random_dense(rng, k, n)
     c = random_dense(rng, m, n)
@@ -95,7 +95,7 @@ def test_strassen_addmul_schedule(rng, m, k, n, levels):
 def test_strassen_sqr_schedule(rng, n, levels):
     """Bodrato's squaring sequence (4 squarings + 3 products,
     strassen.c:210-343) must equal A*A bit for bit."""
-    from m4ri_tpu.ops.strassen import strassen_sqr_data
+    from m4ri_jax.ops.strassen import strassen_sqr_data
     a = random_dense(rng, n, n)
     A = m4.from_numpy(a)
     out = strassen_sqr_data(A.data, n, cutoff=8, max_levels=levels)
@@ -106,7 +106,7 @@ def test_strassen_sqr_schedule(rng, n, levels):
 @pytest.mark.parametrize("n,levels", [(100, 1), (256, 2), (129, 2)])
 def test_strassen_addsqr_schedule(rng, n, levels):
     """C + A*A via the accumulate-squaring schedule (strassen.c:528-665)."""
-    from m4ri_tpu.ops.strassen import strassen_addsqr_data
+    from m4ri_jax.ops.strassen import strassen_addsqr_data
     a = random_dense(rng, n, n)
     c = random_dense(rng, n, n)
     A, C = m4.from_numpy(a), m4.from_numpy(c)
@@ -118,7 +118,7 @@ def test_strassen_addsqr_schedule(rng, n, levels):
 def test_mul_sqr_dispatch(rng):
     """mul(A, A) must route through the squaring specialization above the
     Strassen cutoff and still agree with the generic product."""
-    from m4ri_tpu.ops.strassen import strassen_mul_data, strassen_sqr_data
+    from m4ri_jax.ops.strassen import strassen_mul_data, strassen_sqr_data
     a = random_dense(rng, 200, 200)
     A = m4.from_numpy(a)
     got = strassen_sqr_data(A.data, 200, cutoff=16, max_levels=2)
@@ -131,8 +131,8 @@ def test_strassen_auto_depth3_threshold():
     """The dispatch engages a third Strassen level only at min-dim >=
     strassen_depth3_min (round-5 measurement: 970 vs 886 Tbit-op/s at
     65536 with a donated carry; depth 2 still wins at 32768)."""
-    from m4ri_tpu.ops.strassen import _levels_for
-    from m4ri_tpu.utils.config import get_config
+    from m4ri_jax.ops.strassen import _levels_for
+    from m4ri_jax.utils.config import get_config
     cfg = get_config()
     big = cfg.strassen_depth3_min
     assert _levels_for(big, big, big, None) == 3

@@ -5,9 +5,9 @@ test suite's core strategy), and its glibc RNG must match the Python one."""
 import numpy as np
 import pytest
 
-import m4ri_tpu as m4
-from m4ri_tpu.native import build as native
-from m4ri_tpu.utils.rng import GlibcRandom, reference_random_data
+import m4ri_jax as m4
+from m4ri_jax.native import build as native
+from m4ri_jax.utils.rng import GlibcRandom, reference_random_data
 
 import oracle
 from conftest import random_dense

@@ -7,13 +7,32 @@ P-rowswapped Q^T-colswapped A == L @ E over GF(2)."""
 import numpy as np
 import pytest
 
-import m4ri_tpu as m4
-from m4ri_tpu.core.permutation import (apply_p_left, apply_p_right_trans,
+import m4ri_jax as m4
+from m4ri_jax.core.permutation import (apply_p_left, apply_p_right_trans,
                                        apply_p_right_trans_tri)
-from m4ri_tpu.models.ple import ple, pluq
+from m4ri_jax.models.ple import ple, pluq
 
 import oracle
 from conftest import random_dense
+
+
+def _check_pluq(a_np):
+    m, n = a_np.shape
+    A = m4.from_numpy(a_np)
+    M, P, Q, r = pluq(A)
+    r = int(r)
+    Md = m4.to_numpy(M)
+    L = np.zeros((m, max(r, 1)), np.uint8)
+    for j in range(r):
+        L[j + 1 :, j] = Md[j + 1 :, j]
+        L[j, j] = 1
+    U = np.triu(Md)[:r]
+    Acopy = apply_p_left(m4.from_numpy(a_np), P)
+    Acopy = apply_p_right_trans(Acopy, Q)
+    lhs = m4.to_numpy(Acopy)
+    rhs = (L.astype(np.int64) @ U.astype(np.int64)) % 2 if r else np.zeros((m, n))
+    np.testing.assert_array_equal(lhs, rhs.astype(np.uint8))
+    return Q, r
 
 
 def check_ple(a_np):
@@ -81,21 +100,29 @@ def test_ple_zero_and_identity():
 def test_pluq_reconstruction(rng, m, n):
     """PLUQ: in-place result is L (strict lower) + U (upper); same
     reconstruction as check_ple since mzd_pluq = ple + tri-apply."""
+    _check_pluq(random_dense(rng, m, n))
+
+
+@pytest.mark.parametrize("m,n", [(48, 40), (40, 40)])
+def test_pluq_column_displacement_32(rng, m, n):
+    """Columns 0..31 are zero, so pivot i sits at column i + 32: every
+    column displacement of Q is exactly one word.  The path-blend
+    trans_tri must take its whole-word branch (no shift by 32) and the
+    PLUQ reconstruction must hold."""
+    from m4ri_jax.core.permutation import (_pathblend_host,
+                                           apply_p_right_trans_tri_seq)
     a_np = random_dense(rng, m, n)
-    A = m4.from_numpy(a_np)
-    M, P, Q, r = pluq(A)
-    r = int(r)
-    Md = m4.to_numpy(M)
-    L = np.zeros((m, max(r, 1)), np.uint8)
-    for j in range(r):
-        L[j + 1 :, j] = Md[j + 1 :, j]
-        L[j, j] = 1
-    U = np.triu(Md)[:r]
-    Acopy = apply_p_left(m4.from_numpy(a_np), P)
-    Acopy = apply_p_right_trans(Acopy, Q)
-    lhs = m4.to_numpy(Acopy)
-    rhs = (L.astype(np.int64) @ U.astype(np.int64)) % 2 if r else np.zeros((m, n))
-    np.testing.assert_array_equal(lhs, rhs.astype(np.uint8))
+    a_np[:, :32] = 0
+    Q, r = _check_pluq(a_np)
+    q = np.asarray(Q)
+    assert r == n - 32 and (q[:r] - np.arange(r) == 32).all(), q[:r]
+    W = m4.from_numpy(a_np).data.shape[1]
+    plan = _pathblend_host(q, m, n, W)
+    assert isinstance(plan, tuple) and plan[0] == 32, plan
+    M, _, _, _ = ple(m4.from_numpy(a_np))
+    np.testing.assert_array_equal(
+        m4.to_numpy(apply_p_right_trans_tri(M, Q)),
+        m4.to_numpy(apply_p_right_trans_tri_seq(M, Q)))
 
 
 def _window_cases(rng):
@@ -123,7 +150,7 @@ def test_window_matches_full_height(rng, preserve_l):
     """The windowed pivot hunt (including its batched below-window
     elimination and the miss fallback) must reproduce the full-height
     sequential engine bit for bit: same in-place data, P, Q, rank."""
-    from m4ri_tpu.models.ple import _round_up, block_factor
+    from m4ri_jax.models.ple import _round_up, block_factor
     for name, a_np in _window_cases(rng):
         A = m4.from_numpy(a_np)
         full_w = _round_up(a_np.shape[0], 32)
@@ -144,7 +171,7 @@ def test_window_fallback_check_ple(rng):
 def test_compress_l_vectorized_matches_sequential(rng, m, n):
     """The pointer-chase compression must reproduce the reference's
     sequential column-swap semantics bit for bit."""
-    from m4ri_tpu.models.ple import (_compress_l_impl, _compress_l_seq,
+    from m4ri_jax.models.ple import (_compress_l_impl, _compress_l_seq,
                                      block_factor)
     # low-ish rank inputs exercise chains (Q[j] > j cases)
     k = min(m, n) * 2 // 3
@@ -182,7 +209,7 @@ def _random_ple_q(rng, n, nreal=None):
 
 
 def test_swaps_to_perm_matches_sequential(rng):
-    from m4ri_tpu.core.permutation import swaps_to_perm, swaps_to_perm_seq
+    from m4ri_jax.core.permutation import swaps_to_perm, swaps_to_perm_seq
     for n in (1, 2, 7, 33, 64, 130):
         for trial in range(4):
             v = _random_lapack(rng, n)
@@ -206,7 +233,7 @@ def jnp_arr(v):
 
 
 def test_apply_p_right_trans_tri_matches_sequential(rng):
-    from m4ri_tpu.core.permutation import (apply_p_right_trans_tri,
+    from m4ri_jax.core.permutation import (apply_p_right_trans_tri,
                                            apply_p_right_trans_tri_seq)
     for (m_, n) in ((40, 40), (64, 40), (33, 70), (100, 100)):
         for trial in range(3):
@@ -234,14 +261,14 @@ def test_apply_p_right_trans_tri_matches_sequential(rng):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("engine", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("engine", ["xla", "triton_interpret"])
 def test_block_factor_aggregated_bit_identical(rng, engine):
     """The two-level block-aggregated sweep (per-panel updates restricted
     to the block slab + one deep aggregated trailing update per block)
     must be BIT-identical to the flat sweep — same canonical pivots,
     same P/Q, same in-place L/E layout — across block seams, ragged
     blocks, rank deficiency, and non-square shapes."""
-    from m4ri_tpu.models.ple import _block_factor_impl
+    from m4ri_jax.models.ple import _block_factor_impl
     nb = 64
     cases = [(300, 300, False), (200, 520, False), (520, 200, False),
              (300, 300, True)]
@@ -254,10 +281,10 @@ def test_block_factor_aggregated_bit_identical(rng, engine):
             a = (b.astype(np.int64) @ c.astype(np.int64) % 2).astype(np.uint8)
         A = m4.from_numpy(a)
         ref = _block_factor_impl(A.data, m_, n, nb, True, 0, 128,
-                                 engine, True, True, False, "int8", 1)
+                                 engine, 1)
         for agg in (2, 3):
             got = _block_factor_impl(A.data, m_, n, nb, True, 0, 128,
-                                     engine, True, True, False, "int8", agg)
+                                     engine, agg)
             for name, x, y in zip("dPQr", ref, got):
                 np.testing.assert_array_equal(
                     np.asarray(x), np.asarray(y),
@@ -269,7 +296,7 @@ def test_apply_p_right_trans_tri_banded(rng, monkeypatch):
     must agree cell-exactly with the sequential oracle across band
     seams: in-band chains, cross-band chains, out-of-band targets,
     non-square shapes, and a short swap array."""
-    from m4ri_tpu.core import permutation as perm
+    from m4ri_jax.core import permutation as perm
     monkeypatch.setattr(perm, "_TRANS_TRI_BAND", 32)  # multi-band at test n
     # ns=4 sub-bands per band: exercises the U_s composition loop,
     # cross-sub-band targets, and the seam delta correction (ADVICE r4).
@@ -296,7 +323,7 @@ def test_apply_p_right_trans_tri_banded(rng, monkeypatch):
 def test_apply_p_right_trans_tri_dispatch(rng, monkeypatch):
     """The public op picks the banded path at production sizes and the
     row-chunked path below; both must match the oracle at the seam."""
-    from m4ri_tpu.core import permutation as perm
+    from m4ri_jax.core import permutation as perm
     monkeypatch.setattr(perm, "_TRANS_TRI_BAND", 32)
     monkeypatch.setattr(perm, "_TRANS_TRI_SUBBAND", 8)  # multi-sub-band
     for m_, n in ((64, 64), (63, 70)):  # just at / below the 2-band gate
@@ -311,7 +338,7 @@ def test_apply_p_right_trans_tri_dispatch(rng, monkeypatch):
 def test_apply_p_right_trans_tri_chunked(rng, monkeypatch):
     """The row-chunked cummin (memory bound for big-n pluq) must agree
     with the sequential oracle across chunk boundaries and carry."""
-    from m4ri_tpu.core import permutation as perm
+    from m4ri_jax.core import permutation as perm
     monkeypatch.setattr(perm, "_TRANS_TRI_CHUNK_ELEMS", 64 * 40)  # 64 rows
     a = random_dense(rng, 530, 40)
     v = np.arange(40, dtype=np.int32)
@@ -327,7 +354,7 @@ def test_trans_tri_pathblend(rng):
     concrete PLE-Q arrays) must agree cell-exactly with the sequential
     oracle: chains, multiple paths, non-square shapes, short v, identity,
     and boundary displacements; ineligible inputs must return None."""
-    from m4ri_tpu.core import permutation as perm
+    from m4ri_jax.core import permutation as perm
 
     def check(m_, n, v, expect_blend=True):
         a = random_dense(rng, m_, n)
@@ -395,7 +422,7 @@ def test_trans_tri_pathblend(rng):
 def test_trans_tri_dispatch_uses_pathblend(rng, monkeypatch):
     """apply_p_right_trans_tri with a concrete eligible v must take the
     path-blend engine (and still match the oracle)."""
-    from m4ri_tpu.core import permutation as perm
+    from m4ri_jax.core import permutation as perm
     called = {}
     orig = perm._try_pathblend
 

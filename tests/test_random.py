@@ -4,8 +4,8 @@ masked last word)."""
 
 import numpy as np
 
-import m4ri_tpu as m4
-from m4ri_tpu.utils.rng import GlibcRandom
+import m4ri_jax as m4
+from m4ri_jax.utils.rng import GlibcRandom
 
 # Generated by glibc: srandom(17); random() x 10  (see tests for provenance).
 GLIBC_SEED17 = [1227918265, 3978157, 263514239, 1969574147, 1833982879,
@@ -38,7 +38,7 @@ def test_randomize_reference_masking():
     dense = m4.to_numpy(A)
     assert dense.shape == (8, 70)
     # padding words in our packing must be zero beyond ncols
-    from m4ri_tpu.core.bitmatrix import padding_mask
+    from m4ri_jax.core.bitmatrix import padding_mask
     mask = padding_mask(70)
     assert np.all((np.asarray(A.data) & ~mask[None, :]) == 0)
     # stream consumption: a 70-col row consumes 2 x 64-bit words; row 1

@@ -5,8 +5,8 @@ checks that mirror the reference's pattern fixture, tests/testing.c:3-37)."""
 import numpy as np
 import pytest
 
-import m4ri_tpu as m4
-from m4ri_tpu.core import bitmatrix as bm
+import m4ri_jax as m4
+from m4ri_jax.core import bitmatrix as bm
 
 from conftest import random_dense
 

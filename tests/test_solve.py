@@ -5,9 +5,9 @@ A A^{-1} == I)."""
 import numpy as np
 import pytest
 
-import m4ri_tpu as m4
-from m4ri_tpu.models.echelon import invert
-from m4ri_tpu.models.solve import kernel_left, solve_left
+import m4ri_jax as m4
+from m4ri_jax.models.echelon import invert
+from m4ri_jax.models.solve import kernel_left, solve_left
 
 import oracle
 from conftest import random_dense

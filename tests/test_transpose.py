@@ -4,7 +4,7 @@ sizes straddling word and tile boundaries)."""
 import numpy as np
 import pytest
 
-import m4ri_tpu as m4
+import m4ri_jax as m4
 
 from conftest import random_dense
 

@@ -4,8 +4,8 @@ verified by multiplying back)."""
 import numpy as np
 import pytest
 
-import m4ri_tpu as m4
-from m4ri_tpu.models.triangular import (trsm_lower_left, trsm_lower_right,
+import m4ri_jax as m4
+from m4ri_jax.models.triangular import (trsm_lower_left, trsm_lower_right,
                                         trsm_upper_left, trsm_upper_right,
                                         trtri_lower, trtri_upper)
 

@@ -4,7 +4,7 @@ The functional BitMatrix design composes with jax transforms — a
 capability the reference (in-place C buffers) structurally cannot offer.
 Typical use: cryptanalytic sweeps over many small GF(2) systems at once.
 These tests pin that the packed engines stay exact under jax.vmap (the
-Pallas kernels are excluded from batched traces via allow_pallas /
+GPU kernels are excluded from batched traces via allow_kernels /
 engine="xla"; XLA's batched dot is the right lowering there).
 """
 
@@ -13,10 +13,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import m4ri_tpu as m4
-from m4ri_tpu.core.bitmatrix import BitMatrix
-from m4ri_tpu.models.ple import block_factor
-from m4ri_tpu.ops.mul import mul_packed_data
+import m4ri_jax as m4
+from m4ri_jax.core.bitmatrix import BitMatrix
+from m4ri_jax.models.ple import block_factor
+from m4ri_jax.ops.mul import mul_packed_data
 
 import oracle
 from conftest import random_dense
@@ -32,7 +32,7 @@ def test_vmap_mul(rng):
     b, m, k, n = 5, 96, 130, 64
     amats, apk = _batch(rng, b, m, k)
     bmats, bpk = _batch(rng, b, k, n)
-    f = jax.vmap(lambda a, c: mul_packed_data(a, c, allow_pallas=False))
+    f = jax.vmap(lambda a, c: mul_packed_data(a, c, allow_kernels=False))
     out = np.asarray(f(apk, bpk))
     for i in range(b):
         got = m4.to_numpy(BitMatrix(jnp.asarray(out[i]), n))
